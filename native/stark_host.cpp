@@ -1,4 +1,4 @@
-// Native host runtime for the TPU STARK framework.
+// Native host runtime for the STARK framework.
 //
 // The reference implements its entire host path in Rust; this library is the
 // C++ equivalent of its host-side hot loops, exposed through a tiny C ABI

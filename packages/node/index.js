@@ -1,14 +1,14 @@
 /**
- * Node.js binding for the TPU STARK framework.
+ * Node.js binding for the STARK framework.
  *
  * Mirrors the reference's N-API package surface
  * (`/root/reference/packages/napi/src/index.ts:8-48`: prove / verify /
  * proveWithFilePath / verifyWithFilePath) with the reference's IN-PROCESS
- * call semantics restored at TPU speed: the first call spawns ONE
+ * call semantics restored: the first call spawns ONE
  * long-lived Python worker (`python -m stark_tpu.cli serve`, JSON-RPC over
  * stdio) that holds the compiled executables and circuit caches, so every
- * later call pays only the proof itself (~1 s warm at steps 2^17) instead
- * of a full process + JAX init + compile-cache load.
+ * later call pays only the proof itself instead of a full process + JAX
+ * init + compile-cache load.
  *
  * The four core exports return Promises (the worker is asynchronous by
  * nature); `proveSync`/`verifySync`-style one-shot subprocess variants are

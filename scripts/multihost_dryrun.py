@@ -6,10 +6,10 @@ in one sharded prover-core step (8 four-step-NTT LDEs + accumulator +
 quotients + boundaries + linear combination + both Merkle roots) over the
 global 1-D mesh. Process 0 prints the resulting m/l roots as JSON.
 
-This is the closest a single machine gets to the TPU-pod topology: the
+This is the closest a single machine gets to a multi-host job: the
 processes genuinely cannot address each other's devices, so every
-cross-process value moves through collectives, exactly as DCN traffic
-would. Run directly:
+cross-process value moves through collectives, exactly as cross-host
+traffic would. Run directly:
 
     python scripts/multihost_dryrun.py --procs 2 --devices-per-proc 4
 

@@ -14,46 +14,20 @@ import sys
 import time
 
 
-def _enable_persistent_cache() -> None:
-    """Point JAX at the on-disk compilation cache (same settings as the
-    test conftest) so repeat CLI invocations skip the multi-minute cold
-    compile. Opt out with STARK_TPU_CACHE=0; override the dir by path."""
-    cache = os.environ.get(
-        "STARK_TPU_CACHE", os.path.expanduser("~/.cache/jax_stark")
-    )
-    if cache in ("", "0"):
-        return
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", cache)
-    # GPU-only XLA cache paths would otherwise be derived from the
-    # cache dir and folded into every cache KEY, making cached
-    # executables non-portable across cache locations (cache-pack)
-    jax.config.update("jax_persistent_cache_enable_xla_caches", "")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-
-
 def _cache_archive(cmd: str, archive: str) -> int:
-    """Pack/unpack the three on-disk caches that make cold start expensive:
-    the persistent XLA compile cache (executables; backend-build keyed),
-    the CRT/MXU NTT plan tables (backend-independent host math), and the
-    AOT stage-executable cache (lets a fresh process skip jit tracing;
-    protocol/aot_cache.py)."""
+    """Pack/unpack the two on-disk caches that make cold start expensive:
+    the persistent XLA compile cache (executables; backend-build keyed,
+    `utils.compile_cache`) and the CRT NTT plan tables (backend-independent
+    host math)."""
     import tarfile
 
-    cache = os.environ.get(
-        "STARK_TPU_CACHE", os.path.expanduser("~/.cache/jax_stark")
-    )
+    from stark_tpu.utils import compile_cache
+
+    cache = compile_cache.cache_dir()
     plans = os.path.expanduser(
         os.environ.get("STARK_TPU_PLANS_CACHE", "~/.cache/stark_tpu_plans")
     )
-    aot = os.path.expanduser(
-        os.environ.get("STARK_TPU_AOT_CACHE", "~/.cache/jax_stark_aot")
-    )
-    dirs = (
-        (cache, "jax_stark"), (plans, "stark_tpu_plans"), (aot, "jax_stark_aot")
-    )
+    dirs = ((cache, "jax_stark"), (plans, "stark_tpu_plans"))
     if cmd == "cache-pack":
         n = 0
         # level 1: the payload is mostly already-compressed executables and
@@ -72,11 +46,7 @@ def _cache_archive(cmd: str, archive: str) -> int:
             top, _, rest = member.name.partition("/")
             if not rest or rest != os.path.basename(rest):
                 continue  # refuse paths that escape the cache dirs
-            dest = {
-                "jax_stark": cache,
-                "stark_tpu_plans": plans,
-                "jax_stark_aot": aot,
-            }.get(top)
+            dest = dict((arc, base) for base, arc in dirs).get(top)
             if dest is None or not member.isfile():
                 continue
             os.makedirs(dest, exist_ok=True)
@@ -92,7 +62,9 @@ def main(argv=None) -> int:
     if argv and argv[0] in ("cache-pack", "cache-unpack") and len(argv) == 2:
         # pure tar work: no jax import, no global jax config mutation
         return _cache_archive(argv[0], argv[1])
-    _enable_persistent_cache()
+    from stark_tpu.utils import compile_cache
+
+    compile_cache.enable()
     from stark_tpu.protocol import runner
 
     if argv and argv[0] not in (
@@ -128,10 +100,10 @@ def main(argv=None) -> int:
     cp = sub.add_parser(
         "cache-pack",
         help="tar the persistent XLA compile cache + NTT plan tables into "
-        "one archive -- the TPU-native analogue of shipping prebuilt "
-        "binaries (the Rust reference compiles AOT; XLA compiles JIT). "
-        "Restore with cache-unpack on a host with the same backend build "
-        "for a zero-compile cold start.",
+        "one archive -- the JIT analogue of shipping prebuilt binaries "
+        "(the Rust reference compiles AOT; XLA compiles JIT). Restore with "
+        "cache-unpack on a host with the same backend build and checkout "
+        "path for a zero-compile cold start.",
     )
     cp.add_argument("archive", help="output .tar.gz path")
     cu = sub.add_parser("cache-unpack")

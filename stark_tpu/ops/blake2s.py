@@ -1,10 +1,10 @@
-"""Batched Blake2s-256 on device (pure uint32 VPU ops).
+"""Batched Blake2s-256 on device (pure uint32 elementwise ops).
 
 The reference hashes every Merkle leaf/node serially with the `blake2` crate
 (`/root/reference/packages/commitment/src/utils.rs:5-10`, `blake.rs:28-32`);
 here whole layers are hashed at once, vectorized over N messages.
 
-Kernel structure (TPU/XLA-friendly):
+Kernel structure (XLA-friendly):
 * state as a (4, 4, N) "rows" tensor so each G step processes all four
   column (or diagonal) mixes at once -- the classic SIMD formulation;
 * the 10 rounds run in a `lax.fori_loop` with the SIGMA schedule as a device
@@ -136,24 +136,3 @@ def bytes_to_words_np(data: np.ndarray, msg_len: int) -> np.ndarray:
     buf = np.zeros((n, nblocks * 64), dtype=np.uint8)
     buf[:, :msg_len] = data
     return np.ascontiguousarray(buf.view("<u4").T)
-
-
-def blake2s_words_best(msgs, msg_len: int, policy=None):
-    """Dispatch to the Pallas kernel on TPU (STARK_TPU_PALLAS=1 forces, =0
-    disables), the XLA kernel otherwise. Identical semantics.
-
-    policy='xla' deterministically forces the XLA kernel at trace time
-    (the mesh prover's global sharded stages: GSPMD cannot partition a
-    Pallas custom call); None keeps env/auto."""
-    import os
-
-    if policy == "xla":
-        return blake2s_words(msgs, msg_len)
-    v = os.environ.get("STARK_TPU_PALLAS", "auto")
-    use = v != "0" and (v in ("1", "force") or jax.default_backend() == "tpu")
-    if use:
-        from stark_tpu.ops import pallas_blake2s as pb
-
-        if msgs.shape[1] >= pb.TILE or v in ("1", "force"):
-            return pb.blake2s_words(msgs, msg_len)
-    return blake2s_words(msgs, msg_len)

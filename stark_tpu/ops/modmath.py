@@ -1,16 +1,15 @@
-"""Vectorized modular bigint arithmetic on TPU (uint32 16-bit-limb planes).
+"""Vectorized modular bigint arithmetic on device (uint32 16-bit-limb planes).
 
-TPU-native replacement for the reference's `ff_derive` 4xu64 Montgomery
-arithmetic (`/root/reference/packages/ff_utils/src/fp.rs:8-12`). TPUs have no
-64-bit integer multiplier, so field elements are decomposed into L limbs of
-16 bits held in uint32 lanes: 16x16-bit limb products are exact in uint32 and
-deferred-carry column sums stay below 2^22, so the whole multiply+reduce runs
-as pure VPU element-wise ops.
+Device replacement for the reference's `ff_derive` 4xu64 Montgomery
+arithmetic (`/root/reference/packages/ff_utils/src/fp.rs:8-12`). Field
+elements are decomposed into L limbs of 16 bits held in uint32 lanes:
+16x16-bit limb products are exact in uint32 and deferred-carry column sums
+stay below 2^22, so the whole multiply+reduce runs as plain element-wise
+integer ops that XLA fuses.
 
 Layout: **limbs-first** `(L, ...batch)` uint32, little-endian limb order,
-each limb < 2^16. Limbs-first keeps the trailing (lane) axis as the big batch
-axis so TPU vector registers stay fully utilized; a trailing limb axis of 16
-would be padded to 128 lanes and waste 8x compute/memory.
+each limb < 2^16. Limbs-first keeps the trailing axis as the big batch axis,
+so every limb plane is one long contiguous run.
 
 Values on device are kept in **Montgomery form** (x*R mod p, R = 2^(16L));
 `to_mont`/`from_mont` convert at the host/hash boundaries.
@@ -244,28 +243,6 @@ def mont_consts(spec: FieldSpec, xs):
     )
 
 
-def shoup_consts(spec: FieldSpec, xs):
-    """Host ints -> the Shoup constant-multiplier pair: (L, N) limb planes
-    of the PLAIN values w and their companions floor(w * 2^r_bits / p).
-    w * (xR) = (w*x)R keeps Montgomery data in Montgomery form, so plain
-    constants compose with mmul-domain arrays (see pallas_field's Shoup
-    twiddle path). The companions live in [0, 2^r_bits) and must NOT be
-    reduced mod p (ints_to_limbs_np would), so limbs are built raw here."""
-    R = 1 << spec.r_bits
-    L = spec.num_limbs
-    plain = [int(x) % spec.p for x in xs]
-    comps = [v * R // spec.p for v in plain]
-
-    def raw_limbs(vals):
-        out = np.zeros((L, len(vals)), dtype=np.uint32)
-        for n, v in enumerate(vals):
-            for i in range(L):
-                out[i, n] = (v >> (LIMB_BITS * i)) & ((1 << LIMB_BITS) - 1)
-        return out
-
-    return jnp.asarray(raw_limbs(plain)), jnp.asarray(raw_limbs(comps))
-
-
 @functools.partial(jax.jit, static_argnums=0)
 def to_mont(spec: FieldSpec, a):
     r2 = jnp.broadcast_to(
@@ -284,28 +261,10 @@ def from_mont(spec: FieldSpec, a):
 # pow / inverse
 # ---------------------------------------------------------------------------
 
-def _pallas_scalar_pow_ok(a, e: int) -> bool:
-    """Route long scalar-lane exponentiations to the fused Pallas kernel:
-    XLA's device `while` costs ~0.15 ms per iteration on a (L, 1) value
-    (the accumulator's single Fermat inversion profiled at 76 ms/prove),
-    while the in-VMEM kernel runs the whole chain in well under 1 ms."""
-    import os
-
-    if os.environ.get("STARK_TPU_PALLAS", "auto") == "0":
-        return False
-    if a.ndim != 2 or a.shape[1] > 8 or e.bit_length() < 32:
-        return False
-    return jax.default_backend() == "tpu"
-
-
 @functools.partial(jax.jit, static_argnums=(0, 2))
 def mpow(spec: FieldSpec, a, e: int):
     """a^e elementwise (Montgomery in/out), static exponent; MSB-first
     square-and-multiply inside a fori_loop so the graph stays small."""
-    if _pallas_scalar_pow_ok(a, e):
-        from stark_tpu.ops import pallas_field as pf
-
-        return pf.mpow_scalar(spec, a, e)
     nbits = max(e.bit_length(), 1)
     bits = jnp.asarray([(e >> (nbits - 1 - i)) & 1 for i in range(nbits)], dtype=U32)
     one = jnp.broadcast_to(
@@ -327,103 +286,22 @@ def minv(spec: FieldSpec, a):
 
 
 # ---------------------------------------------------------------------------
-# prefix products and batched inversion (blocked two-level scans)
+# prefix products and batched inversion
 # ---------------------------------------------------------------------------
-
-def _block_size(n: int) -> int:
-    b = 1
-    while b * b < n:
-        b *= 2
-    return min(b, 1024)
-
-
-def _pallas_scan_ok(n: int) -> bool:
-    import os
-
-    v = os.environ.get("STARK_TPU_PALLAS", "auto")
-    if v == "0" or n < 4096 or n & (n - 1):
-        return False
-    if v in ("1", "force"):
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _prefix_prod_pallas(spec: FieldSpec, v):
-    """Inclusive prefix product via the Pallas scan kernel, recursively:
-    contiguous chunks of size B ride the sequential axis, chunk totals
-    recurse, and one combine multiply stitches them."""
-    from stark_tpu.ops import pallas_field as pf
-
-    L, n = v.shape
-    if n <= 64:
-        # tiny: plain sequential scan (inside the enclosing jit)
-        def step(carry, x):
-            nc = mmul(spec, carry, x)
-            return nc, nc
-
-        xs = jnp.moveaxis(v[:, :, None], 1, 0)  # (n, L, 1)
-        _, pref = jax.lax.scan(step, jnp.broadcast_to(mont_one(spec), (L, 1)), xs)
-        return jnp.moveaxis(pref[..., 0], 0, 1)
-    C = min(1024, n // 8)
-    B = n // C
-    # chunk-major view, transposed so chunks ride the lanes
-    vb = jnp.swapaxes(v.reshape(L, C, B), 1, 2)  # (L, B, C)
-    pref = pf.scan_prod(spec, vb)  # inclusive per chunk
-    totals = pref[:, B - 1, :]  # (L, C)
-    ctot_inc = _prefix_prod_pallas(spec, totals)
-    one = jnp.broadcast_to(mont_one(spec), (L, 1))
-    ctot_exc = jnp.concatenate([one, ctot_inc[:, :-1]], axis=1)  # (L, C)
-    combined = pf.mmul(
-        spec,
-        jnp.swapaxes(pref, 1, 2).reshape(L, n),
-        jnp.broadcast_to(ctot_exc[:, :, None], (L, C, B)).reshape(L, n),
-    )
-    return combined
-
 
 @functools.partial(jax.jit, static_argnums=(0, 2))
 def prefix_prod(spec: FieldSpec, v, reverse: bool = False):
-    """Inclusive prefix product along axis 1 of a (L, N) Montgomery array.
+    """Inclusive prefix product along axis 1 of a (L, N) Montgomery array
+    (suffix products with `reverse`).
 
-    TPU: one-pass Pallas scan kernel (VMEM carry across grid steps) with
-    recursive chunk-total stitching. Fallback: two-level blocked lax.scan
-    (an in-block scan batched over all blocks, then a scan over block
-    totals, then one combine multiply).
+    A log-depth `lax.associative_scan` with `mmul` as the operator: each
+    level is one wide multiply. A sequential blocked scan measured 20x
+    slower on the GPU (per-step launches; PERF.md). Field products are
+    exact, so the result does not depend on the association order.
     """
-    L, n = v.shape
-    if _pallas_scan_ok(n):
-        if reverse:
-            return _prefix_prod_pallas(spec, v[:, ::-1])[:, ::-1]
-        return _prefix_prod_pallas(spec, v)
-    if reverse:
-        v = v[:, ::-1]
-    B = _block_size(n)
-    C = n // B
-    assert C * B == n, "prefix_prod requires power-of-two length"
-    vb = v.reshape(L, C, B)
-    one_lc = jnp.broadcast_to(mont_one(spec).reshape(L, 1), (L, C))
-
-    def step(carry, x):
-        nc = mmul(spec, carry, x)
-        return nc, nc
-
-    xs = jnp.moveaxis(vb, 2, 0)  # (B, L, C)
-    tot, pref = jax.lax.scan(step, one_lc, xs)  # pref: (B, L, C) inclusive
-
-    one_l1 = jnp.broadcast_to(mont_one(spec).reshape(L, 1), (L, 1))
-    xs2 = jnp.moveaxis(tot, 1, 0)[..., None]  # (C, L, 1)
-    _, cpref = jax.lax.scan(step, one_l1, xs2)  # (C, L, 1) inclusive
-    cpref_exc = jnp.concatenate([one_l1[None], cpref[:-1]], axis=0)  # (C, L, 1)
-    cpref_exc = jnp.moveaxis(cpref_exc[..., 0], 0, 1)  # (L, C)
-
-    out = mmul(
-        spec,
-        jnp.moveaxis(pref, 0, 2).reshape(L, C, B),
-        jnp.broadcast_to(cpref_exc[:, :, None], (L, C, B)),
-    ).reshape(L, n)
-    if reverse:
-        out = out[:, ::-1]
-    return out
+    return jax.lax.associative_scan(
+        lambda a, b: mmul(spec, a, b), v, reverse=reverse, axis=1
+    )
 
 
 @functools.partial(jax.jit, static_argnums=0)
@@ -439,23 +317,15 @@ def multi_inv(spec: FieldSpec, a):
     v = jnp.where(z, one, a)
 
     # both scans use reverse=False so the nested-jit jaxpr cache shares ONE
-    # trace of prefix_prod per (spec, shape) -- tracing the Pallas scan is
-    # ~10 s of host time at 2^16+, a large share of cold-start lowering
+    # trace of prefix_prod per (spec, shape)
     pre_inc = prefix_prod(spec, v)
     suf_inc = prefix_prod(spec, v[:, ::-1])[:, ::-1]
     total_inv = minv(spec, pre_inc[:, -1:])
     pre_exc = jnp.concatenate([one[:, :1], pre_inc[:, :-1]], axis=1)
     suf_exc = jnp.concatenate([suf_inc[:, 1:], one[:, :1]], axis=1)
-    if _pallas_scan_ok(n):
-        from stark_tpu.ops import pallas_field as pf
-
-        out = pf.mmul(
-            spec, pf.mmul(spec, jnp.broadcast_to(total_inv, (L, n)), pre_exc), suf_exc
-        )
-    else:
-        out = mmul(
-            spec, mmul(spec, jnp.broadcast_to(total_inv, (L, n)), pre_exc), suf_exc
-        )
+    out = mmul(
+        spec, mmul(spec, jnp.broadcast_to(total_inv, (L, n)), pre_exc), suf_exc
+    )
     return jnp.where(z, jnp.zeros_like(a), out)
 
 

@@ -1,4 +1,4 @@
-"""Four-step NTT on the MXU via CRT modular matmuls.
+"""Four-step NTT as CRT modular matmuls (the matrix engine).
 
 ``DFT_n`` with ``n = n1*n2`` (j = j1*n2 + j2, k = k1 + n1*k2):
 
@@ -10,9 +10,9 @@ Both sums are :func:`stark_tpu.ops.crt.crt_matmul` calls (step B takes T as
 a residue-space pre-table); the output laid out as (k2, k1) reshapes
 directly to the natural-order flat DFT — no bit reversals anywhere.
 
-Compared to the Pallas butterfly path (`stark_tpu/ops/pallas_field.py`),
-which is capped by ~9-op emulated 32-bit VPU multiplies, the O(n^1.5) DFT
-matmuls run as exact bf16/f32 MXU contractions. This mirrors the role of
+Compared to the butterfly path (`stark_tpu/ops/ntt.py`), whose cost is the
+16-limb Montgomery multiply, the O(n^1.5) DFT matmuls run as exact f32
+contractions. This mirrors the role of
 the reference's `parallel_fft` (`/root/reference/packages/fri/src/fft.rs:
 195-251`) as the "big transform" engine.
 
@@ -37,8 +37,8 @@ import jax as _jax
 
 
 def _tw_dtype():
-    """u16 twiddle storage halves HBM; STARK_TPU_CRT_TW32=1 stores u32
-    (debug toggle for transports with suspect sub-32-bit transfers)."""
+    """u16 twiddle storage halves device memory; STARK_TPU_CRT_TW32=1
+    stores u32 (debug toggle)."""
     import os
 
     return np.uint32 if os.environ.get("STARK_TPU_CRT_TW32", "0") == "1" else np.uint16
@@ -156,7 +156,7 @@ class MxuNttPlan3:
     """Three-level four-step plan for n = n1 * m (m = inner n up to 2^20,
     n1 <= 1024): step A contracts n1, a full-size twiddle scales, and the
     inner transform is a batched two-level `MxuNttPlan` applied across the
-    n1 rows. Extends the MXU engine to n up to 2^30 (table memory caps it
+    n1 rows. Extends the matrix engine to n up to 2^30 (table memory caps it
     in practice around 2^24). Pytree."""
 
     def __init__(
@@ -295,12 +295,12 @@ def make_ntt_plan_cached(
         plan.basis_a = crt.CrtBasis(spec, ba_bits)
         plan.basis_b = crt.CrtBasis(spec, bb_bits)
         pa = object.__new__(crt.CrtMatmulPlan)
-        pa.W0 = jnp.asarray(data["aw0"]).astype(crt._mat_dtype())
-        pa.W1 = jnp.asarray(data["aw1"]).astype(crt._mat_dtype())
+        pa.W0 = jnp.asarray(data["aw0"]).astype(crt._DT)
+        pa.W1 = jnp.asarray(data["aw1"]).astype(crt._DT)
         pa.kout, pa.k = n1, plan.nz1
         pb = object.__new__(crt.CrtMatmulPlan)
-        pb.W0 = jnp.asarray(data["bw0"]).astype(crt._mat_dtype())
-        pb.W1 = jnp.asarray(data["bw1"]).astype(crt._mat_dtype())
+        pb.W0 = jnp.asarray(data["bw0"]).astype(crt._DT)
+        pb.W1 = jnp.asarray(data["bw1"]).astype(crt._DT)
         pb.kout, pb.k = n2, n2
         plan.plan_a, plan.plan_b = pa, pb
         plan.twiddle = jnp.asarray(data["tw"])
@@ -352,7 +352,7 @@ def make_lde_plans(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int
 
 
 def lde_mxu(inv_plan: MxuNttPlan, big_plan, trace):
-    """(L, steps) -> (L, precision) low-degree extension, all on the MXU.
+    """(L, steps) -> (L, precision) low-degree extension, all as matmuls.
     With a two-level big plan the zero-pad between the transforms is a pure
     reshape (natural-order coefficients ARE the nonzero rows of the padded
     (n1, n2) view); the three-level plan (precision > 2^20) takes the
@@ -389,7 +389,7 @@ def lde_mxu_sharded(mesh, inv_plan: MxuNttPlan, big_plan: MxuNttPlan, trace):
     mesh's "d" axis and the DFT matrices are replicated, so step A/B run
     locally per device; the only cross-device traffic is the all-to-all
     XLA inserts for the mid-pipeline (n1, n2) transpose -- the same
-    communication shape as the classic four-step NTT over ICI
+    communication shape as the classic four-step NTT over the mesh
     (SURVEY.md section 2.9 / `fft.rs:195-251`'s thread axis)."""
     from jax.sharding import NamedSharding, PartitionSpec as Pp
 

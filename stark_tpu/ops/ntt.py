@@ -1,4 +1,4 @@
-"""Number-theoretic transform (radix-2) over limb fields, TPU-native.
+"""Number-theoretic transform (radix-2) over limb fields, on device.
 
 Replaces the reference's `serial_fft`/`parallel_fft`/`best_fft`
 (`/root/reference/packages/fri/src/fft.rs:150-379`) with a batched device
@@ -6,11 +6,9 @@ NTT. Semantics are the standard DFT: X[k] = sum_j x[j] * w^(jk) with w the
 given root of unity, matching the reference exactly (verified against its F7
 known-answer tests).
 
-Design notes (TPU/XLA):
+Design notes (XLA):
 
-* **No dynamic gathers in the butterflies.** TPU gathers along the lane axis
-  are catastrophically slow (the previous constant-geometry XOR formulation
-  spent ~700 ms per 2^18 transform on them). Instead, each stage views the
+* **No dynamic gathers in the butterflies.** Each stage views the
   array as `(L, m, 2, l)` by *reshape only* and combines the two middle-axis
   halves -- pure elementwise adds/muls with broadcast twiddles:
 
@@ -35,7 +33,6 @@ Design notes (TPU/XLA):
 
 from __future__ import annotations
 
-import functools
 import os
 
 import jax.numpy as jnp
@@ -43,22 +40,6 @@ import numpy as np
 
 from stark_tpu.fields.field import FieldSpec
 from stark_tpu.ops import modmath as mm
-from stark_tpu.ops import pallas_field as pf
-
-
-def _use_pallas() -> bool:
-    """Pallas NTT cores: default on real TPU only (the interpret-mode
-    fallback is correct but far too slow for CPU test runs, which use the
-    pure-XLA path instead). STARK_TPU_PALLAS=1 forces it (small CPU tests),
-    =0 disables it everywhere."""
-    v = os.environ.get("STARK_TPU_PALLAS", "auto")
-    if v == "0":
-        return False
-    if v in ("1", "force"):
-        return True
-    import jax
-
-    return jax.default_backend() == "tpu"
 
 
 def _bitrev_perm(n: int) -> np.ndarray:
@@ -69,37 +50,6 @@ def _bitrev_perm(n: int) -> np.ndarray:
         rev = (rev << 1) | (idx & 1)
         idx >>= 1
     return rev
-
-
-def _shoup_stage_tables(spec: FieldSpec, root: int, n: int):
-    """Per-stage stacked (2L, l) tables [plain twiddle ; floor(tw*R/p)]
-    for the Shoup butterfly path, l ascending (1, 2, ..., n/2)."""
-    p = spec.p
-    L = spec.num_limbs
-    rbits = L * 16
-    tables = []
-    l, m = 1, n // 2
-    logn = n.bit_length() - 1
-    for _ in range(logn):
-        ratio = pow(root, m, p)
-        tws, v = [], 1
-        for _ in range(l):
-            tws.append(v)
-            v = v * ratio % p
-        comps = [(t << rbits) // p for t in tws]
-        arr = np.zeros((2 * L, l), np.uint32)
-        for idx, t in enumerate(tws):
-            for i in range(L):
-                arr[i, idx] = (t >> (16 * i)) & 0xFFFF
-        for idx, t in enumerate(comps):
-            for i in range(L):
-                arr[L + i, idx] = (t >> (16 * i)) & 0xFFFF
-        import jax.numpy as _jnp
-
-        tables.append(_jnp.asarray(arr))
-        l *= 2
-        m //= 2
-    return tables
 
 
 def forward_table(spec: FieldSpec, root: int, n: int):
@@ -176,7 +126,7 @@ def _ntt_core(spec: FieldSpec, a, w_half):
 
 # ---------------------------------------------------------------------------
 # two-level (Cooley-Tukey n = n1*n2) plans: keeps every butterfly stage on a
-# large trailing batch axis so TPU vector registers stay full. Composition of
+# large trailing batch axis (long contiguous elementwise runs). Composition of
 # bit-reversals is exact: rev_n(i*n2 + i2) = rev_n2(i2)*n1 + rev_n1(i), so
 #   DIF(n) = DIF_axis1(n1, root w^n2) -> twiddle w^(rev_n1(i)*j2)
 #            -> DIF_axis2(n2, root w^n1)
@@ -208,10 +158,8 @@ class NttPlan:
     natural -> bitrev; "dit": bitrev -> natural. Build once; registered as
     a jax pytree so plans pass through `jit` as runtime arguments (baking
     the multi-MB tables in as module constants blows up compile payloads).
-
-    Two implementations share the plan type: the Pallas path (default on
-    TPU; per-stage twiddle arrays, fused small-l stages) and the pure-XLA
-    two-level path (STARK_TPU_PALLAS=0 / CPU)."""
+    Small transforms run one direct core; larger ones the two-level
+    pipeline."""
 
     def __init__(self, spec: FieldSpec, root: int, n: int, direction: str):
         assert direction in ("dif", "dit")
@@ -219,47 +167,6 @@ class NttPlan:
         self.n = n
         self.direction = direction
         p = spec.p
-        # below 4*TILE the XLA path is fine and per-shape pallas kernels
-        # would just churn compiles (FRI rounds shrink through many sizes)
-        forced = os.environ.get("STARK_TPU_PALLAS", "") in ("1", "force")
-        self.pallas = _use_pallas() and (n >= 4 * pf.TILE or forced) and n > 2
-        self.shoup = (
-            self.pallas
-            and spec.num_limbs == 16
-            and os.environ.get("STARK_TPU_SHOUP", "0") in ("1", "force")
-        )
-        if self.pallas:
-            # classic position-twiddle factorizations (GS-DIF / CT-DIT)
-            # share identical per-stage tables tw_k = root^(k*m), k in [l]
-            block = min(n, 2 * pf.TILE)
-            logn = n.bit_length() - 1
-            if self.shoup:
-                stage_tables = _shoup_stage_tables(spec, root, n)
-            else:
-                w_half = mm.power_table(spec, root, max(n // 2, 1))
-            stages = []  # ascending l
-            l, m = 1, n // 2
-            for si in range(logn):
-                if self.shoup:
-                    tw = stage_tables[si]
-                else:
-                    tw = w_half[:, ::m][:, :l] if l > 1 else w_half[:, :1]
-                stages.append((m, l, tw))
-                l *= 2
-                m //= 2
-            fused = [s for s in stages if 2 * s[1] <= block]
-            singles = [s for s in stages if 2 * s[1] > block]
-            if direction == "dif":  # dif runs l descending
-                fused.reverse()
-                singles.reverse()
-            self.singles = singles
-            if fused:
-                ls = [l for (_, l, _) in fused]
-                rows = pf.make_fused_rows(spec, ls, [t for (_, _, t) in fused], block)
-                self.fused = (rows, ls, block)
-            else:
-                self.fused = None
-            return
         if n <= _SMALL_NTT:
             self.small = True
             self.w_half = mm.power_table(spec, root, max(n // 2, 1))
@@ -278,62 +185,8 @@ class NttPlan:
         self.mid_tw = _power_table_batched(spec, bases, n2)  # (L, n1, n2)
 
 
-@functools.lru_cache(maxsize=None)
-def _stage_jit(spec: FieldSpec, m: int, l: int, kind: str, shoup: bool, canon: bool):
-    """Cached jitted single-stage kernel (so eager per-stage dispatch hits
-    one compiled executable per (shape, stage) instead of re-lowering)."""
-    import jax
-
-    return jax.jit(
-        lambda a, tw: pf.butterfly_stage(spec, a, tw, m, l, kind, shoup, canon)
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def _fused_jit(spec: FieldSpec, ls: tuple, block: int, kind: str, shoup: bool,
-               canon: bool):
-    import jax
-
-    return jax.jit(
-        lambda a, rows: pf.butterfly_fused(
-            spec, a, rows, list(ls), block, kind, shoup, canon
-        )
-    )
-
-
-def _run_pallas(spec: FieldSpec, a, plan: NttPlan, canon: bool = False):
-    """Execute a pallas plan: strided single-stage kernels for l >= TILE,
-    one fused kernel for the run of small-l stages. Stages dispatch as
-    separate jits -- small compile modules, cached executables. With the
-    Shoup path, `canon` canonicalizes the final stage's outputs."""
-    kind = plan.direction
-    shoup = getattr(plan, "shoup", False)
-    canon = canon and shoup
-
-    def run_fused(a, last: bool):
-        if plan.fused is None:
-            return a
-        rows, ls, block = plan.fused
-        return _fused_jit(spec, tuple(ls), block, kind, shoup, canon and last)(
-            a, rows
-        )
-
-    if kind == "dif":
-        for m, l, tw in plan.singles:
-            a = _stage_jit(spec, m, l, kind, shoup, False)(a, tw)
-        a = run_fused(a, True)
-    else:
-        a = run_fused(a, plan.singles == [])
-        for i, (m, l, tw) in enumerate(plan.singles):
-            last = i == len(plan.singles) - 1
-            a = _stage_jit(spec, m, l, kind, shoup, canon and last)(a, tw)
-    return a
-
-
 def _dif_fast(spec: FieldSpec, a, plan: NttPlan):
     """(L, n) natural -> (L, n) bitrev DFT via the two-level pipeline."""
-    if plan.pallas:
-        return _run_pallas(spec, a, plan)  # lazy [0,2p) under Shoup
     if plan.small:
         return _dif_core(spec, a, plan.w_half)
     L = a.shape[0]
@@ -347,11 +200,8 @@ def _dif_fast(spec: FieldSpec, a, plan: NttPlan):
     return a3.reshape(L, plan.n)
 
 
-def _dit_fast(spec: FieldSpec, a, plan: NttPlan, canon: bool = True):
-    """(L, n) bitrev -> (L, n) natural DFT (mirror of `_dif_fast`).
-    Under the Shoup path `canon` controls final canonicalization."""
-    if plan.pallas:
-        return _run_pallas(spec, a, plan, canon=canon)
+def _dit_fast(spec: FieldSpec, a, plan: NttPlan):
+    """(L, n) bitrev -> (L, n) natural DFT (mirror of `_dif_fast`)."""
     if plan.small:
         return _dit_core(spec, a, plan.w_half)
     L = a.shape[0]
@@ -396,18 +246,6 @@ def zero_pad(values, n: int):
 
 
 def _nttplan_flatten(p: "NttPlan"):
-    if p.pallas:
-        children = tuple(tw for (_, _, tw) in p.singles)
-        fused_rows = (p.fused[0],) if p.fused is not None else ()
-        aux = (
-            "pallas",
-            p.n,
-            p.direction,
-            tuple((m, l) for (m, l, _) in p.singles),
-            (tuple(p.fused[1]), p.fused[2]) if p.fused is not None else None,
-            getattr(p, "shoup", False),
-        )
-        return children + fused_rows, aux
     if p.small:
         return (p.w_half,), ("small", p.n, p.direction)
     return (
@@ -420,18 +258,6 @@ def _nttplan_unflatten(aux, children):
     p = object.__new__(NttPlan)
     kind = aux[0]
     p.n, p.direction = aux[1], aux[2]
-    if kind == "pallas":
-        p.pallas = True
-        shapes = aux[3]
-        p.singles = [(m, l, tw) for (m, l), tw in zip(shapes, children[: len(shapes)])]
-        if aux[4] is not None:
-            ls, block = aux[4]
-            p.fused = (children[len(shapes)], list(ls), block)
-        else:
-            p.fused = None
-        p.shoup = aux[5] if len(aux) > 5 else False
-        return p
-    p.pallas = False
     if kind == "small":
         p.small = True
         p.w_half = children[0]
@@ -477,28 +303,17 @@ def make_lde_plan(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int)
 
 
 def use_mxu_lde(steps: int, precision: int) -> bool:
-    """Route LDEs to the CRT/MXU matmul engine (ops/mxu_ntt)?
+    """Route LDEs to the CRT matmul engine (ops/mxu_ntt)?
 
-    Default ("auto"): on for large domains on the TPU backend, where the
-    engine is bit-exact at full production scale (two-level: scripts/
-    dbg3_crt.py decision table; three-level >2^20: scripts/dbg_mxu3.py
-    MXU3_DISCRIMINATOR equal=True at steps 2^19 / precision 2^22,
-    2026-08-18) and measured faster than the Pallas butterfly engine
-    (core 0.54 s vs 0.93 s at steps 2^17; 2^22 LDE 1.4x).
-    STARK_TPU_MXU=0 disables; =1 enables on any backend; =force drops the
-    size floor (tests)."""
-    env = os.environ.get("STARK_TPU_MXU", "auto")
+    Off by default: the butterfly engine is the one path measured on the
+    GPU. STARK_TPU_MXU=1 enables the matmul engine for steps >= 2^12;
+    =force drops the size floor (tests)."""
+    env = os.environ.get("STARK_TPU_MXU", "0")
     if precision > 1 << 24:
-        return False  # three-level twiddle tables outgrow HBM
+        return False  # three-level twiddle tables outgrow device memory
     if env == "force":
         return True
-    if env == "0" or steps < 1 << 12:
-        return False
-    if env == "1":
-        return True
-    import jax
-
-    return jax.default_backend() == "tpu"
+    return env == "1" and steps >= 1 << 12
 
 
 def make_best_lde(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int):
@@ -537,10 +352,7 @@ def lde(spec: FieldSpec, trace, plan: LdePlan):
     else:
         coeffs_rev = _dif_fast(spec, trace, plan.small_dif)
     n_inv_b = jnp.broadcast_to(plan.n_inv, coeffs_rev.shape)
-    if getattr(plan.small_dif, "pallas", False):
-        coeffs_rev = pf.mmul(spec, coeffs_rev, n_inv_b)
-    else:
-        coeffs_rev = mm.mmul(spec, coeffs_rev, n_inv_b)
+    coeffs_rev = mm.mmul(spec, coeffs_rev, n_inv_b)
     if ratio == 1:
         padded = coeffs_rev
     else:

@@ -1,6 +1,6 @@
 """Batched degree-4 Lagrange interpolation and evaluation (FRI row ops).
 
-TPU-native version of the reference's quartic fast path
+Device version of the reference's quartic fast path
 (`/root/reference/packages/fri/src/poly_utils.rs:442-511`): `multi_interp_4`
 interpolates Q independent 4-point sets with one shared batched inversion;
 `eval_quartic4` evaluates the resulting cubics. Arrays are limbs-first
@@ -18,34 +18,17 @@ from stark_tpu.fields.field import FieldSpec
 from stark_tpu.ops import modmath as mm
 
 
-def _mul_best(spec: FieldSpec, a, b):
-    """Elementwise Montgomery product with Pallas dispatch (the XLA limb
-    path is ~20x slower on TPU; FRI rounds run these over full domains)."""
-    from stark_tpu.protocol.kernels import _pk
-
-    sh = a.shape
-    n = 1
-    for d in sh[1:]:
-        n *= d
-    if _pk(n):
-        from stark_tpu.ops import pallas_field as pf
-
-        b = jnp.broadcast_to(b, sh)
-        return pf.mmul(spec, a.reshape(sh[0], n), b.reshape(sh[0], n)).reshape(sh)
-    return mm.mmul(spec, a, b)
-
-
 @functools.partial(jax.jit, static_argnums=0)
 def eval_quartic_batch(spec: FieldSpec, polys, x):
     """polys: (L, Q, 4); x: (L, Q) or (L, 1) broadcastable. Returns (L, Q)."""
     if x.ndim == 2 and x.shape[1] == 1:
         x = jnp.broadcast_to(x, (x.shape[0], polys.shape[1]))
-    xsq = _mul_best(spec, x, x)
-    xcb = _mul_best(spec, xsq, x)
+    xsq = mm.mmul(spec, x, x)
+    xcb = mm.mmul(spec, xsq, x)
     acc = polys[:, :, 0]
-    acc = mm.madd(spec, acc, _mul_best(spec, polys[:, :, 1], x))
-    acc = mm.madd(spec, acc, _mul_best(spec, polys[:, :, 2], xsq))
-    acc = mm.madd(spec, acc, _mul_best(spec, polys[:, :, 3], xcb))
+    acc = mm.madd(spec, acc, mm.mmul(spec, polys[:, :, 1], x))
+    acc = mm.madd(spec, acc, mm.mmul(spec, polys[:, :, 2], xsq))
+    acc = mm.madd(spec, acc, mm.mmul(spec, polys[:, :, 3], xcb))
     return acc
 
 
@@ -60,7 +43,7 @@ def multi_interp_4(spec: FieldSpec, xsets, ysets):
     L, Q, _ = xsets.shape
     x = [xsets[:, :, j] for j in range(4)]
     y = [ysets[:, :, j] for j in range(4)]
-    mul = lambda a, b: _mul_best(spec, a, b)
+    mul = lambda a, b: mm.mmul(spec, a, b)
     add = lambda a, b: mm.madd(spec, a, b)
     zero = jnp.zeros((L, Q), jnp.uint32)
     neg = lambda a: mm.msub(spec, zero, a)
@@ -99,5 +82,5 @@ def multi_interp_4(spec: FieldSpec, xsets, ysets):
     for j, eqj in enumerate([eq0, eq1, eq2, eq3]):
         w = mul(y[j], invs[:, :, j])  # (L, Q)
         w4 = jnp.broadcast_to(w[:, :, None], eqj.shape)
-        out = mm.madd(spec, out, _mul_best(spec, eqj, w4))
+        out = mm.madd(spec, out, mm.mmul(spec, eqj, w4))
     return out

@@ -1,19 +1,18 @@
-"""Multi-host scale-out: `jax.distributed` initialization and DCN-aware
+"""Multi-host scale-out: `jax.distributed` initialization and host-aware
 mesh construction.
 
 The reference's only parallel axis is single-process multicore
 (`/root/reference/packages/commitment/src/multicore.rs:22-146`); SURVEY
 sections 5.8/7 map the scale-out axis onto `jax.distributed` + a device
-mesh whose collectives ride ICI within a slice and DCN across hosts. This
-module is that mapping:
+mesh whose collectives ride the intra-host links within a host and the
+network across hosts. This module is that mapping:
 
-* :func:`initialize` -- one call per process, env-var driven (works for
-  TPU pods via the automatic runtime, and for CPU/GPU multi-process with
-  an explicit coordinator).
+* :func:`initialize` -- one call per process, env-var driven (an explicit
+  coordinator for CPU/GPU multi-process jobs).
 * :func:`global_mesh_1d` -- the prover's 1-D domain-parallel mesh over
   every device in the job, ordered process-major so each host owns a
   contiguous chunk of the evaluation domain. With that layout the
-  four-step NTT's all-to-all is the only stage whose traffic crosses DCN;
+  four-step NTT's all-to-all is the only stage whose traffic crosses hosts;
   the Merkle fold reduces locally to per-device subroots and only the
   (depth x 32-byte) top levels move between hosts, and the elementwise
   constraint kernels move nothing at all.
@@ -23,8 +22,7 @@ module is that mapping:
   numpy data (each process contributes the shards it owns); this is the
   multi-process replacement for `jax.device_put(x, sharding)`.
 
-Hardware note: this image exposes one TPU chip and no second host, so the
-multi-host path is exercised by `scripts/multihost_dryrun.py`, which
+The multi-host path is exercised by `scripts/multihost_dryrun.py`, which
 spawns N real OS processes with CPU devices, initializes
 `jax.distributed` with a local coordinator, and runs the sharded prover
 core across them (`tests/test_multihost.py` asserts the roots match the
@@ -48,8 +46,7 @@ def initialize(
 ) -> None:
     """Initialize `jax.distributed` for this process.
 
-    On TPU pods every argument is discovered from the runtime; elsewhere
-    the explicit arguments (or JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES
+    The explicit arguments (or JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES
     / JAX_PROCESS_ID) select the job shape. Safe to call once per process,
     before any other jax API touches the backend."""
     kwargs = {}
@@ -77,7 +74,7 @@ def global_mesh_1d(axis: str = "d", n_devices: int | None = None) -> Mesh:
 
     `jax.devices()` orders devices process-major, so a contiguous
     domain-sharding maps each host to a contiguous slice of the evaluation
-    domain -- the layout the module docstring's DCN-traffic analysis
+    domain -- the layout the module docstring's cross-host traffic analysis
     assumes."""
     devs = jax.devices()
     if n_devices is not None:

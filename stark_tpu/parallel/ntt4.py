@@ -1,6 +1,6 @@
 """Distributed four-step (Bailey) NTT over a 1-D device mesh.
 
-This is the TPU-native replacement for the reference's `parallel_fft`
+This is the device-mesh replacement for the reference's `parallel_fft`
 (`/root/reference/packages/fri/src/fft.rs:195-251`), which shards a
 twiddle-shuffled sub-FFT per CPU thread. Here the evaluation domain is
 sharded contiguously over the mesh axis and the transform decomposes as
@@ -11,8 +11,8 @@ sharded contiguously over the mesh axis and the transform decomposes as
 
 with the n1-axis DFT made local by an all-to-all, the twiddle multiply and
 the M-point DFT fully local, and a final all-to-all restoring the natural
-contiguous sharding. All collectives ride the mesh axis (ICI on real TPU
-slices); compute between them is the same fori_loop butterfly kernel as the
+contiguous sharding. All collectives ride the mesh axis (NCCL over NVLink
+between GPUs); compute between them is the same fori_loop butterfly kernel as the
 single-chip path.
 """
 
@@ -55,10 +55,10 @@ def ntt_sharded_local(
               (k1 = axis 1, n2 = q*M/d + j with q = this device).
     n_inv_mont: optional (L, 1) Montgomery 1/N for the inverse transform.
     m_plan: optional `mxu_ntt.MxuNttPlan` for the LOCAL M-point DFT at
-            root w_N^d -- routes step 5 onto the MXU (CRT matmul engine)
-            instead of the VPU butterflies; bit-identical by construction
+            root w_N^d -- routes step 5 onto the CRT matmul engine
+            instead of the butterflies; bit-identical by construction
             (same DFT values, canonical limbs out). The collectives and
-            layout are unchanged, so ICI traffic is identical.
+            layout are unchanged, so mesh traffic is identical.
     Returns (L, M): chunk of the DFT in natural contiguous sharding.
     """
     L, M = x_local.shape

@@ -8,21 +8,17 @@ geometry — device-resident Fiat-Shamir transcript
 device->host transfer — with a single mesh-dependent stage (`columns`,
 see `core.build_proof_stages`):
 
-* d=1: the fused single-chip engine (CRT/MXU LDEs, Pallas kernels) — the
-  four-step factorization is the identity decomposition at d=1, so this IS
-  the sharded kernel's degenerate case and carries the full single-chip
-  performance (certified by `scripts/mesh1_tpu.py` on hardware);
+* d=1: the single-device engine — the four-step factorization is the
+  identity decomposition at d=1, so this IS the sharded kernel's
+  degenerate case;
 * d>1: the four-step NTT + quotient body under shard_map
-  (`prove_sharded.build_sharded_columns_step`; per-device Pallas butterfly
-  kernels engage automatically on real TPU meshes — the `_use_pallas`
-  auto gate sees local shapes inside shard_map), with the downstream
+  (`prove_sharded.build_sharded_columns_step`), with the downstream
   commits / linear combination / FRI running the same jnp code on the
-  global sharded arrays under the pure-XLA kernel policy (GSPMD cannot
-  partition Pallas custom calls).
+  global sharded arrays.
 
 This replaces the reference's one parallel axis — crossbeam threads over
 FFT and Merkle (`/root/reference/packages/fri/src/fft.rs:195-251`,
-`commitment/src/pallarel_merkle_tree.rs:59-114`) — with ICI collectives,
+`commitment/src/pallarel_merkle_tree.rs:59-114`) — with mesh collectives,
 and the emitted proof is byte-identical to the single-device prover's
 (asserted by `tests/test_parallel_full.py` on an 8-way mesh and by the
 driver's `dryrun_multichip`).

@@ -3,7 +3,7 @@ with the evaluation domain sharded over a 1-D device mesh.
 
 This is the multi-chip mapping promised by SURVEY.md section 7/9: the
 reference's only parallel axis (crossbeam threads over the FFT and Merkle
-build, `fft.rs:195-251`, `pallarel_merkle_tree.rs:59-114`) becomes ICI
+build, `fft.rs:195-251`, `pallarel_merkle_tree.rs:59-114`) becomes
 collectives over a `jax.sharding.Mesh`:
 
 * LDE: four-step NTT with all-to-all transposes (:mod:`ntt4`);
@@ -64,12 +64,12 @@ def merkle_root_words(spec_unused, leaf_words, leaf_bytes: int, axis_name, n_dev
 
     Local log-depth fold to one subroot per device, all_gather, replicated
     top fold. Requires leaves-per-device >= 1 and powers of two."""
-    h = b2.blake2s_words_best(leaf_words, leaf_bytes)  # (8, M)
+    h = b2.blake2s_words(leaf_words, leaf_bytes)  # (8, M)
     while h.shape[1] > 1:
         m = h.shape[1] // 2
         pair = h.reshape(8, m, 2)
         msg = jnp.concatenate([pair[:, :, 0], pair[:, :, 1]], axis=0)
-        h = b2.blake2s_words_best(msg, 64)
+        h = b2.blake2s_words(msg, 64)
     sub = h[:, 0]  # (8,)
     allsub = jax.lax.all_gather(sub, axis_name, axis=1)  # (8, d)
     h = allsub
@@ -77,7 +77,7 @@ def merkle_root_words(spec_unused, leaf_words, leaf_bytes: int, axis_name, n_dev
         m = h.shape[1] // 2
         pair = h.reshape(8, m, 2)
         msg = jnp.concatenate([pair[:, :, 0], pair[:, :, 1]], axis=0)
-        h = b2.blake2s_words_best(msg, 64)
+        h = b2.blake2s_words(msg, 64)
     return h[:, 0]
 
 
@@ -141,8 +141,8 @@ def lde_local(
 
 
 def _use_mesh_mxu(spec, steps: int, precision: int, d: int) -> bool:
-    """Route the sharded body's LOCAL M-point DFTs onto the CRT/MXU matmul
-    engine (VERDICT r4 #7)? Same auto policy as the single-chip engine,
+    """Route the sharded body's LOCAL M-point DFTs onto the CRT matmul
+    engine? Same default as the single-chip engine,
     bounded by the two-level plan's exactness limit (local M <= 2^20).
     STARK_TPU_MESH_MXU=0/1 overrides."""
     import os
@@ -167,7 +167,7 @@ def _make_domain(spec: FieldSpec, mesh: Mesh, steps: int, precision: int):
     g2 = spec.root_of_unity(precision)
     g1 = pow(g2, skips, p)
     omega = pow(g2, steps, p)
-    # per-device MXU plans for the local M-point DFTs of the four-step
+    # per-device CRT plans for the local M-point DFTs of the four-step
     # transforms (step 5 of ntt4.ntt_sharded_local); roots are w_N^d of
     # the (inverse) steps transform and the forward precision transform
     m_plan_steps = m_plan_prec = None

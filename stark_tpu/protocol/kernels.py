@@ -10,38 +10,10 @@ interleaves these with the Fiat-Shamir commitments.
 
 from __future__ import annotations
 
-import os
-
 import jax.numpy as jnp
 
 from stark_tpu.fields.field import FieldSpec
 from stark_tpu.ops import modmath as mm
-
-
-def _pk(n: int, policy=None) -> bool:
-    """Route to the fused Pallas kernels (TPU, TILE-aligned domains).
-
-    `policy` overrides the STARK_TPU_PALLAS env gate deterministically at
-    trace time: 'xla' forces the pure-XLA path (used by the mesh prover's
-    GLOBAL sharded stages, where a Pallas custom call cannot be partitioned
-    by GSPMD); None keeps the env/auto behavior (single chip, and
-    per-device bodies under shard_map, where Pallas is fine)."""
-    if policy == "xla":
-        return False
-    v = os.environ.get("STARK_TPU_PALLAS", "auto")
-    if v == "0" or n < 1024 or n % 1024:
-        return False
-    if v in ("1", "force"):
-        return True
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _pkm():
-    from stark_tpu.protocol import pallas_kernels
-
-    return pallas_kernels
 
 
 def mul_periodic(spec: FieldSpec, a, base):
@@ -58,45 +30,25 @@ def mul_periodic(spec: FieldSpec, a, base):
     return out.reshape(L, N)
 
 
-def mmul_ev(spec: FieldSpec, a, b, policy=None):
-    """Elementwise Montgomery product with Pallas dispatch (domain-sized)."""
-    if _pk(a.shape[1], policy):
-        from stark_tpu.ops import pallas_field as pf
-
-        return pf.mmul(spec, a, b)
-    return mm.mmul(spec, a, b)
-
-
-def sub_mul_ev(spec: FieldSpec, a, b, c, policy=None):
+def sub_mul_ev(spec: FieldSpec, a, b, c):
     """(a - b) * c elementwise — the boundary quotients B2/B3
-    (`prove.rs:216-232`). The fused Pallas kernel reads each operand once;
-    the composed path's separate msub measured ~8 ms of compare/select
-    fusion per call at 2^20."""
-    if _pk(a.shape[1], policy):
-        return _pkm().sub_mul(spec, a, b, c)
+    (`prove.rs:216-232`)."""
     return mm.mmul(spec, mm.msub(spec, a, b), c)
 
 
-def mmul_periodic_const(spec: FieldSpec, q, mont_table, shoup_pats=None,
-                        policy=None):
-    """q * a periodic per-domain constant (Z^-1, x^steps).
-
-    Pallas + Shoup patterns when available (~1.7 vs 3 limb products, no
-    (L, N) constant read); else the Montgomery table — tiled full-width
-    (small domains) or the (L, skips) periodic base (big domains)."""
-    if shoup_pats is not None and _pk(q.shape[1], policy):
-        return _pkm().shoup_mul_periodic(spec, shoup_pats[0], shoup_pats[1], q)
+def mmul_periodic_const(spec: FieldSpec, q, mont_table):
+    """q * a periodic per-domain constant (Z^-1, x^steps): the Montgomery
+    table tiled full-width (small domains) or its (L, skips) periodic base
+    (big domains)."""
     if mont_table.shape[1] != q.shape[1]:
         return mul_periodic(spec, q, mont_table)
-    return mmul_ev(spec, q, mont_table, policy)
+    return mm.mmul(spec, q, mont_table)
 
 
-def rand_combination(spec: FieldSpec, r_mont, idx_ev, perm_ev, s_ev, policy=None):
+def rand_combination(spec: FieldSpec, r_mont, idx_ev, perm_ev, s_ev):
     """val_nmr/val_dnm = r0 + r1*idx + r2*S (utils.rs:317-318,359-360).
 
     r_mont: (L, 3) Montgomery randomness columns."""
-    if _pk(s_ev.shape[1], policy):
-        return _pkm().rand_combination(spec, r_mont, idx_ev, perm_ev, s_ev)
     shape = s_ev.shape
     r0 = jnp.broadcast_to(r_mont[:, 0:1], shape)
     r1 = jnp.broadcast_to(r_mont[:, 1:2], shape)
@@ -129,10 +81,8 @@ def accumulator_mini(spec: FieldSpec, val_nmr, val_dnm):
     return mm.mmul(spec, acc_nmr, inv_prefix)
 
 
-def q1_eval(spec: FieldSpec, s_ev, k_ev, p_ev, f0_ev, f1_ev, skips: int, policy=None):
+def q1_eval(spec: FieldSpec, s_ev, k_ev, p_ev, f0_ev, f1_ev, skips: int):
     """Q1 = F0*(P - F1*P_prev - K*S) (utils.rs:181-213)."""
-    if _pk(s_ev.shape[1], policy):
-        return _pkm().q1_eval(spec, s_ev, k_ev, p_ev, f0_ev, f1_ev, skips)
     p_prev = jnp.roll(p_ev, skips, axis=1)
     return mm.mmul(
         spec,
@@ -145,31 +95,25 @@ def q1_eval(spec: FieldSpec, s_ev, k_ev, p_ev, f0_ev, f1_ev, skips: int, policy=
     )
 
 
-def q2_eval(spec: FieldSpec, p_ev, f2_ev, kshift: int, policy=None):
+def q2_eval(spec: FieldSpec, p_ev, f2_ev, kshift: int):
     """Q2 = F2*(P(+2k) - P*P(+k)), k = original_steps/3*skips
     (utils.rs:217-248)."""
-    if _pk(p_ev.shape[1], policy):
-        return _pkm().q2_eval(spec, p_ev, f2_ev, kshift)
     p_plus_w = jnp.roll(p_ev, -kshift, axis=1)
     p_plus_2w = jnp.roll(p_ev, -2 * kshift, axis=1)
     return mm.mmul(spec, f2_ev, mm.msub(spec, p_plus_2w, mm.mmul(spec, p_ev, p_plus_w)))
 
 
-def q3_eval(spec: FieldSpec, a_ev, val_nmr_big, val_dnm_big, skips: int, policy=None):
+def q3_eval(spec: FieldSpec, a_ev, val_nmr_big, val_dnm_big, skips: int):
     """Q3 = A*val_dnm - A_prev*val_nmr (utils.rs:344-376)."""
-    if _pk(a_ev.shape[1], policy):
-        return _pkm().q3_eval(spec, a_ev, val_nmr_big, val_dnm_big, skips)
     a_prev = jnp.roll(a_ev, skips, axis=1)
     return mm.msub(
         spec, mm.mmul(spec, a_ev, val_dnm_big), mm.mmul(spec, a_prev, val_nmr_big)
     )
 
 
-def horner_eval(spec: FieldSpec, coeffs_mont, xs_full, policy=None):
+def horner_eval(spec: FieldSpec, coeffs_mont, xs_full):
     """Evaluate a low-degree polynomial (host-interpolated boundary
     interpolant) on the whole domain. coeffs_mont: (L, deg+1)."""
-    if _pk(xs_full.shape[1], policy):
-        return _pkm().horner_eval(spec, coeffs_mont, xs_full)
     out = jnp.zeros_like(xs_full)
     for i in range(coeffs_mont.shape[1] - 1, -1, -1):
         c = jnp.broadcast_to(coeffs_mont[:, i : i + 1], xs_full.shape)
@@ -177,10 +121,8 @@ def horner_eval(spec: FieldSpec, coeffs_mont, xs_full, policy=None):
     return out
 
 
-def vanishing_eval(spec: FieldSpec, xs_full, points_mont, policy=None):
+def vanishing_eval(spec: FieldSpec, xs_full, points_mont):
     """Zb(x) = prod_i (x - x_i). points_mont: (L, n_points)."""
-    if _pk(xs_full.shape[1], policy):
-        return _pkm().vanishing_eval(spec, xs_full, points_mont)
     acc = jnp.broadcast_to(mm.mont_one(spec), xs_full.shape)
     for i in range(points_mont.shape[1]):
         xi = jnp.broadcast_to(points_mont[:, i : i + 1], xs_full.shape)
@@ -190,28 +132,14 @@ def vanishing_eval(spec: FieldSpec, xs_full, points_mont, policy=None):
 
 def linear_combination(
     spec: FieldSpec, k_mont, x_to_steps, p_ev, a_ev, s_ev, d1, d2, d3, b2, b3,
-    policy=None, x2s_pats=None,
 ):
     """L = k0*D1 + k1*D2 + k2*D3 + k3*P + k4*P*x^steps + k5*B2 + k6*B2*x^steps
          + k7*B3 + k8*B3*x^steps + k9*A + k10*S  (prove.rs:293-322).
 
     k_mont: (L, 11) Montgomery Fiat-Shamir coefficients. x_to_steps may be
     the full (L, N) table or its (L, skips) periodic base (large domains;
-    see `mul_periodic`). x2s_pats: optional TILE-wide Shoup pattern pair
-    for x^steps (`modmath.shoup_consts`); with Pallas active the fused
-    kernel then multiplies by x^steps in Shoup form and never reads an
-    (L, N) x^steps table."""
-    if x2s_pats is not None and _pk(s_ev.shape[1], policy):
-        return _pkm().linear_combination_shoup(
-            spec, k_mont, x2s_pats[0], x2s_pats[1],
-            p_ev, a_ev, s_ev, d1, d2, d3, b2, b3,
-        )
-    periodic = x_to_steps.shape[1] != s_ev.shape[1]
-    if not periodic and _pk(s_ev.shape[1], policy):
-        return _pkm().linear_combination(
-            spec, k_mont, x_to_steps, p_ev, a_ev, s_ev, d1, d2, d3, b2, b3
-        )
-    if periodic:
+    see `mul_periodic`)."""
+    if x_to_steps.shape[1] != s_ev.shape[1]:
         mulx = lambda col: mul_periodic(spec, col, x_to_steps)
     else:
         mulx = lambda col: mm.mmul(spec, col, x_to_steps)

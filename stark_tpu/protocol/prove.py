@@ -1,7 +1,7 @@
 """The R1CS STARK prover, re-expressed as batched device kernels.
 
 Pipeline parity with `mk_r1cs_proof` (`/root/reference/packages/r1cs-stark/
-src/prove.rs:14-378`), with a TPU-first structure:
+src/prove.rs:14-378`), with a device-first structure:
 
 * all 9 trace columns are low-degree-extended on device (iNTT@g1, NTT@g2);
 * constraint/quotient/boundary evaluations are fused element-wise kernels
@@ -237,7 +237,7 @@ def enqueue_r1cs_proof(
         if arith.witness_le is not None and arith.slot_wire_ids is not None:
             # circuit-static arrays upload ONCE per (arith, steps, mesh):
             # serving loops (prove_many) reuse the same arith across
-            # witnesses, so only the witness crosses the transport per proof
+            # witnesses, so only the witness is uploaded per proof
             statics = getattr(arith, "_device_statics", None)
             if statics is None or statics[0] != (steps, mesh):
                 wids = np.zeros(steps, dtype=np.uint32)
@@ -315,7 +315,7 @@ def enqueue_r1cs_proof(
             # Zb2^-1 is circuit-static (utils.rs:438-455): compute once per
             # circuit and keep the (L, N) table device-resident across
             # proves (~64 MB at 2^20; big domains recompute per prove
-            # inside rest_a instead, like Zb3^-1)
+            # inside the B2 program instead, like Zb3^-1)
             zb2c = getattr(arith, "_inv_zb2_cache", None)
             if zb2c is None or zb2c[0] != (steps, mesh, digest):
                 zb2c = (
@@ -389,7 +389,7 @@ def enqueue_r1cs_proof(
     with phase("fri"):
         pending = fri.prove_low_degree_pending(
             spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
-            policy=stages["policy"], digest=digest,
+            digest=digest,
         )
 
     # every gather against these trees is dispatched above; dropping the

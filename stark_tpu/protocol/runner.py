@@ -95,10 +95,11 @@ def prove_many(
     naturally: while proof i's arrays stream back and format on the host,
     proof i+1's dispatches (and the host arithmetization for i+2) already
     run. `pipeline` bounds the in-flight chains (each holds O(precision)
-    device arrays; 2 fits comfortably at steps 2^17 on a 16 GB chip).
+    device arrays; 2 was sized for a 16 GB device at steps 2^17, and is not
+    re-tuned for 80 GB yet).
 
     No reference counterpart (main.rs proves one file per process); this is
-    the deployment shape a proving service wants on a TPU.
+    the deployment shape a proving service wants.
     """
     from stark_tpu.protocol.prove import (
         enqueue_r1cs_proof,
@@ -140,7 +141,7 @@ def prove_many(
 
     # pre-upload witnesses one proof ahead (single-device serving): the
     # H2D starts asynchronously while the previous proof's arrays stream
-    # back, hiding the ~0.13 s witness transfer behind the materialize
+    # back, hiding the witness transfer behind the materialize
     pre_upload = mesh is None and shared_arith is not None
     wit_devs: list = [None] * len(witness_bytes_list)
 

@@ -2,10 +2,9 @@
 
 Restores the reference napi binding's in-process call semantics
 (`/root/reference/packages/napi/src/lib.rs:23-30`: prove/verify without
-paying process startup per call) at TPU speed: one long-lived Python/JAX
-process holds the compiled executables, the parsed-circuit caches, and the
-device-resident circuit statics, so repeat calls pay only the proof itself
-(~1 s warm at steps 2^17 vs tens of seconds for a fresh process).
+paying process startup per call): one long-lived Python/JAX process holds
+the compiled executables, the parsed-circuit caches, and the
+device-resident circuit statics, so repeat calls pay only the proof itself.
 
 Protocol (one JSON object per line on stdin; one `RPC {...}` line per
 response on stdout — the prefix keeps stray library prints from corrupting

@@ -12,10 +12,11 @@ replacement: nested named phases collected into a report, opt-in via env:
                              phase exit. JAX dispatch is async, so without
                              this the report attributes almost all device
                              time to whichever phase blocks first (usually
-                             `materialize`). TPU executes one compute
-                             stream in launch order, so the dummy op
-                             completes only after the phase's real work --
-                             an effective per-phase barrier. Diagnostic
+                             `materialize`). A device runs one process's
+                             computations on one compute stream in launch
+                             order, so the dummy op completes only after
+                             the phase's real work -- an effective
+                             per-phase barrier. Diagnostic
                              only: the barriers defeat cross-phase
                              pipelining, so totals are a little worse than
                              production.
@@ -114,20 +115,24 @@ _barrier_fn = None
 
 def _device_barrier():
     """Block until all device work enqueued so far completes (see the
-    STARK_TPU_SYNC_PHASES doc above for why this works on TPU). The
-    barrier runs as a NAMED jit so device-trace parsers can use its
-    envelope events as phase separators (`profiling.parse_device_trace`)."""
+    STARK_TPU_SYNC_PHASES doc above for why this works). The barrier runs
+    as a NAMED jit over a device input (so XLA cannot fold it to a
+    constant and skip the launch); device-trace parsers use its kernel as
+    a phase separator (`profiling.parse_device_trace`)."""
     global _barrier_fn
     import jax
 
     if _barrier_fn is None:
         import jax.numpy as jnp
 
-        def stark_phase_barrier():
-            return jnp.zeros((), jnp.uint32) + jnp.uint32(1)
+        def stark_phase_barrier(x):
+            return x + jnp.uint32(1)
 
-        _barrier_fn = jax.jit(stark_phase_barrier)
-    jax.block_until_ready(_barrier_fn())
+        _barrier_fn = (jax.jit(stark_phase_barrier), jax.device_put(
+            jnp.zeros((), jnp.uint32)
+        ))
+    fn, x = _barrier_fn
+    jax.block_until_ready(fn(x))
 
 
 def sync_point(value):

@@ -23,7 +23,7 @@ def cache_dirs(tmp_path, monkeypatch):
     plans = tmp_path / "plans_cache"
     cache.mkdir()
     plans.mkdir()
-    monkeypatch.setenv("STARK_TPU_CACHE", str(cache))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(cache))
     monkeypatch.setenv("STARK_TPU_PLANS_CACHE", str(plans))
     return cache, plans
 
@@ -100,7 +100,7 @@ def test_cache_unpack_refuses_traversal(cache_dirs, tmp_path):
 @pytest.mark.quick
 def test_cache_pack_skips_missing_dirs(tmp_path, monkeypatch):
     """Packing on a host with no caches yet produces a valid empty archive."""
-    monkeypatch.setenv("STARK_TPU_CACHE", str(tmp_path / "nonexistent"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "nonexistent"))
     monkeypatch.setenv(
         "STARK_TPU_PLANS_CACHE", str(tmp_path / "also_nonexistent")
     )

@@ -1,9 +1,9 @@
-"""CRT/MXU modular matmul: exactness against python bigints.
+"""CRT modular matmul: exactness against python bigints.
 
 Covers the riskiest machinery of stark_tpu.ops.crt: the redundant-lane wrap
 count, balanced-digit reconstruction, banded REDC matmuls, and the
-Montgomery-preserving pre-scaling. Runs on CPU (bf16 dots are exact for the
-digit magnitudes by construction)."""
+Montgomery-preserving pre-scaling (f32 dots are exact for the digit
+magnitudes by construction, given full-precision matmuls)."""
 
 import numpy as np
 import jax
@@ -127,26 +127,6 @@ def test_crt_matmul_jit_pytree(basis):
             assert got[bb] == want
 
 
-def test_reconstruct_pallas_interpret_matches_xla(basis, monkeypatch):
-    """The fused Pallas reconstruction kernel (interpret mode on CPU)
-    agrees with the XLA body."""
-    from stark_tpu.ops import pallas_crt
-
-    monkeypatch.setenv("STARK_TPU_PALLAS", "force")
-    rng = np.random.default_rng(11)
-    s = jnp.asarray(
-        rng.integers(0, 15300, (basis.P + 1, pallas_crt.TILE)).astype(np.uint32)
-    )
-    o_p = np.asarray(pallas_crt.reconstruct(basis, s))
-    o_x = np.asarray(
-        crt._reconstruct_math(
-            basis._consts(), basis.G, basis.negM_dig, basis.NB, basis.PB,
-            s, crt._dot,
-        )
-    )
-    assert (o_p == o_x).all()
-
-
 def test_montgomery_domain_preserved(basis):
     """Montgomery-form inputs yield Montgomery-form outputs."""
     rng = np.random.default_rng(5)
@@ -210,30 +190,39 @@ def test_crt_matmul_pre_edge_values(basis):
             assert got[bb] == want, (kk, bb)
 
 
-def test_crt_matmul_fused_matches_xla(basis, monkeypatch):
-    """The fused Pallas pipeline (residues_in + matmul_fold + reconstruct,
-    interpret mode here) is bit-identical to the XLA `_crt_matmul_body` on
-    the same inputs, with and without a pre-table."""
-    from stark_tpu.ops import pallas_crt
+def _dot_precisions(jaxpr):
+    """Precision of every dot_general in a jaxpr, nested jaxprs included."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (tuple, list)) else (v,):
+                sub = getattr(sub, "jaxpr", sub)  # ClosedJaxpr -> Jaxpr
+                if hasattr(sub, "eqns"):
+                    out += _dot_precisions(sub)
+    return out
 
-    rng = np.random.default_rng(11)
-    K, B, KOUT = 128, 16, 128  # K*B = 2048 = RTILE; KOUT*B % TILE == 0
-    w = [[int(rng.integers(0, 2**63)) ** 3 % P for _ in range(K)]
-         for _ in range(KOUT)]
-    plan = crt.CrtMatmulPlan(basis, w)
-    x = rng.integers(0, 1 << 16, size=(16, K, B)).astype(np.uint32)
-    xj = jnp.asarray(x)
-    pre = rng.integers(
-        0, np.asarray(basis.qs_host)[:, None, None],
-        size=(len(basis.qs_host), K, B),
-    ).astype(np.uint32)
-    prej = jnp.asarray(pre)
 
-    monkeypatch.setenv("STARK_TPU_CRT_FUSED", "0")
-    ref = np.asarray(crt._crt_matmul_body(basis, plan, xj))
-    ref_pre = np.asarray(crt._crt_matmul_body(basis, plan, xj, prej))
-    monkeypatch.setenv("STARK_TPU_CRT_FUSED", "force")
-    got = np.asarray(pallas_crt.crt_matmul_fused(basis, plan, xj))
-    got_pre = np.asarray(pallas_crt.crt_matmul_fused(basis, plan, xj, prej))
-    assert np.array_equal(ref, got)
-    assert np.array_equal(ref_pre, got_pre)
+@pytest.mark.parametrize("entry", ["reduce_in", "reconstruct", "crt_matmul"])
+def test_crt_dots_use_highest_precision(basis, entry):
+    """Every dot of the engine runs at Precision.HIGHEST: a reduced-precision
+    float matmul (TF32 on GPU tensor cores) would round the digit products."""
+    rng = np.random.default_rng(3)
+    if entry == "reduce_in":
+        fn = lambda x: basis.reduce_in(x)
+        arg = jnp.asarray(rng.integers(0, 1 << 16, (16, 8)).astype(np.uint32))
+    elif entry == "reconstruct":
+        fn = lambda s: basis.reconstruct(s)
+        arg = jnp.asarray(
+            rng.integers(0, 15000, (basis.P + 1, 8)).astype(np.uint32)
+        )
+    else:
+        w = [[int(rng.integers(0, 1 << 62)) % P for _ in range(4)] for _ in range(4)]
+        plan = crt.CrtMatmulPlan(basis, w)
+        fn = lambda x: crt.crt_matmul(basis, plan, x)
+        arg = jnp.asarray(rng.integers(0, 1 << 16, (16, 4, 2)).astype(np.uint32))
+    precs = _dot_precisions(jax.make_jaxpr(fn)(arg).jaxpr)
+    assert precs, "no dot_general found"
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p in (highest, (highest, highest)) for p in precs), precs

@@ -135,53 +135,3 @@ def test_bytes_roundtrip_np():
     assert mm.limbs_to_ints_np(limbs, spec) == xs
     back = mm.limbs_to_bytes_le_np(limbs, spec)
     assert np.array_equal(back, raw)
-
-
-@pytest.mark.quick
-def test_skew_product_columns_match_schoolbook():
-    from stark_tpu.ops import pallas_field as pf
-
-    spec = BN254_FR
-    """`_skew_sum`-based deferred product columns == the naive per-(i, j)
-    schoolbook loop, for both the Montgomery full product and the Shoup
-    column ranges. Plain jnp on any backend (no pallas_call), so this runs
-    in the quick tier and pins the reshape-skew index math exactly."""
-    rng = random.Random(11)
-    L, T = spec.num_limbs, 8
-    A = np.array(
-        [[rng.randrange(1 << 16) for _ in range(T)] for _ in range(L)],
-        dtype=np.uint32,
-    )
-    B = np.array(
-        [[rng.randrange(1 << 16) for _ in range(T)] for _ in range(L)],
-        dtype=np.uint32,
-    )
-
-    def naive_cols(lo_col, hi_col):
-        cols = np.zeros((hi_col - lo_col + 1, T), np.uint64)
-        for i in range(L):
-            for j in range(L):
-                pp = A[i].astype(np.uint64) * B[j].astype(np.uint64)
-                for k, part in ((i + j, pp & 0xFFFF), (i + j + 1, pp >> 16)):
-                    if lo_col <= k <= hi_col:
-                        cols[k - lo_col] += part
-        return cols.astype(np.uint32)
-
-    import jax.numpy as jnp
-
-    got_full = np.asarray(pf._bigmul_cols_loop(jnp.asarray(A), jnp.asarray(B), L))
-    assert np.array_equal(got_full, naive_cols(0, 2 * L))
-
-    for lo, hi in ((L - 2, 2 * L), (0, L - 1), (3, 7)):
-        got = np.stack(
-            [
-                np.asarray(r)
-                for r in pf._mul_cols_range(
-                    [jnp.asarray(A[i]) for i in range(L)],
-                    [jnp.asarray(B[i]) for i in range(L)],
-                    lo,
-                    hi,
-                )
-            ]
-        )
-        assert np.array_equal(got, naive_cols(lo, hi)), (lo, hi)

@@ -91,24 +91,6 @@ def test_lde_mxu_matches_lde_mid_scale():
     assert out == want
 
 
-def test_shoup_butterfly_lde_matches_default(monkeypatch):
-    """The Shoup (precomputed-quotient) butterfly path, forced through the
-    interpret-mode Pallas kernels on CPU, equals the default XLA path."""
-    rng = np.random.default_rng(6)
-    steps, precision = 16, 128
-    g2 = spec.root_of_unity(precision)
-    g1 = pow(g2, 8, P)
-    vals, tr = rand_mont(rng, steps)
-    ref_plan = nttm.make_lde_plan(spec, g1, g2, steps, precision)
-    want = from_mont_ints(nttm.lde(spec, tr, ref_plan))
-    monkeypatch.setenv("STARK_TPU_PALLAS", "force")
-    monkeypatch.setenv("STARK_TPU_SHOUP", "1")
-    sh_plan = nttm.make_lde_plan(spec, g1, g2, steps, precision)
-    assert sh_plan.small_dif.shoup and sh_plan.big_dit.shoup
-    got = from_mont_ints(nttm.lde(spec, tr, sh_plan))
-    assert got == want
-
-
 def test_lde_mxu3_matches_lde():
     """LDE through the three-level big plan (the precision > 2^20 route,
     built here at a small size) matches the butterfly LDE."""

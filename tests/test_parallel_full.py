@@ -51,7 +51,7 @@ def test_sharded_prover_matches_single_device():
 
 
 def test_sharded_prover_mxu_engine_matches_single_device(monkeypatch):
-    """VERDICT r4 #7: the shard_map columns body with the CRT/MXU matmul
+    """The shard_map columns body with the CRT/MXU matmul
     engine as the local M-point DFT (ntt4 step 5) emits the same bytes as
     the plain prover. Forced on via STARK_TPU_MESH_MXU=1 (the auto gate
     keeps butterflies below production sizes)."""

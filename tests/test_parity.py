@@ -137,7 +137,7 @@ def test_prover_matches_oracle_poseidon3(tmp_path):
 
 @pytest.mark.midslow
 def test_prover_matches_oracle_ragged():
-    """Ragged mixed-width circuit (sha256_2-class shape, VERDICT r4 #10):
+    """Ragged mixed-width circuit (sha256_2-class shape):
     per-constraint widths 1..32, scattered wire locality. The production
     prover (device arithmetization path) must agree byte-for-byte with the
     oracle on the NON-uniform n_coeff paths the uniform synthetic chains
